@@ -1,28 +1,14 @@
-"""Irregular-mesh evidence: the chunk-grid kernels off the icosphere.
+"""Irregular-mesh traversal: the BVH traversal kernel off the icosphere.
 
-Every traversal/fused-PT number in BASELINE.md is measured on a uniform
-icosphere — constant triangle density, the chunk grid's best case
-(VERDICT r4 missing #5).  This harness measures the same kernels on a
-NON-uniform scene at EQUAL triangle count (81,920 tris, the s6 row):
-two large smooth spheres plus a tight cluster of eight small dense ones
-— triangle edge lengths spanning ~20x, so chunk volumes and per-tile
-worklists skew exactly the way real scenes (gen_data.py:94-102
-generalized) stress the hierarchy.
+A uniform icosphere has constant triangle density, the best case for a
+BVH.  This harness times the traversal on a NON-uniform scene at EQUAL
+triangle count (81,920 tris, the s6 row): two large smooth spheres plus a
+tight cluster of eight small dense ones — triangle edge lengths spanning
+~20x — beside the uniform icosphere, for the Pallas kernel
+(ops/pallas_bvh.py) and the XLA while_loop walk (accel/bvh.py), on the
+same incoherent rays.  Hit ids of the two must agree.
 
-Three rows per scene, uniform vs clustered:
-  1. traversal kernel, 1M 6d-sorted incoherent rays (the BASELINE
-     methodology), with per-tile worklist-length distributions from the
-     kernel's ``with_stats`` output;
-  2. fused PT forward, 512x512x16spp 8-bounce RR, with per-(cell,
-     bounce) worklist stats;
-  3. fused PT fwd+bwd (the flagship metric) via the replay backward.
-
-The artifact records throughput ratios and occupancy histograms; the
-acceptance bar from the VERDICT is degradation <= ~2x at equal tri
-count (else the supers_per/supers2_per heuristics need retuning).
-
-Usage: python benchmarks/irregular_mesh.py
-           [--out benchmarks/artifacts/irregular_r5.json] [--tris-scale 6]
+Usage: python benchmarks/irregular_mesh.py [--rays 1048576] [--out FILE]
 """
 
 from __future__ import annotations
@@ -37,12 +23,12 @@ def clustered_specs():
     """81,920 triangles: 2 x subdiv-5 large + 8 x subdiv-4 small spheres
     (20480*2 + 5120*8), radii spanning 16 -> 0.9, the small ones packed
     into a ~10-unit cluster near the front-left floor."""
+    import numpy as np
+
     specs = [
         ((30.0, 22.0, 55.0), 16.0, 5),
         ((72.0, 14.0, 90.0), 12.0, 5),
     ]
-    import numpy as np
-
     rng = np.random.RandomState(7)
     base = np.array([22.0, 5.0, 115.0])
     for i in range(8):
@@ -52,193 +38,74 @@ def clustered_specs():
     return specs
 
 
-def occupancy(arr):
-    import numpy as np
-
-    a = np.asarray(arr, np.float64).reshape(-1)
-    return {
-        "mean": round(float(a.mean()), 2),
-        "p50": int(np.percentile(a, 50)),
-        "p95": int(np.percentile(a, 95)),
-        "max": int(a.max()),
-        "cv": round(float(a.std() / max(a.mean(), 1e-9)), 3),
-    }
-
-
 def main(argv=None) -> int:
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     p = argparse.ArgumentParser()
     p.add_argument("--rays", type=int, default=1 << 20)
-    p.add_argument("--size", type=int, default=512)
-    p.add_argument("--spp", type=int, default=16)
-    p.add_argument("--bounces", type=int, default=8)
-    p.add_argument("--chunk-tris", type=int, default=16)
     p.add_argument("--iters", type=int, default=6)
-    p.add_argument("--skip-bwd", action="store_true")
-    p.add_argument("--out", default=os.path.join(
-        os.path.dirname(os.path.abspath(__file__)),
-        "artifacts", "irregular_r5.json"))
+    p.add_argument("--out", default=None, help="also write the JSON here")
     args = p.parse_args(argv)
 
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    from ascendpathtracing_tpu.accel import meshes
-    from ascendpathtracing_tpu.models import mesh as mesh_mod
-    from ascendpathtracing_tpu.ops import pallas_mesh_pt as mpt
-    from ascendpathtracing_tpu.ops import pallas_wbvh as wbvh, sort as rs
-    from ascendpathtracing_tpu.utils import profiling
+    from ascendpathtracing import backend
+    from ascendpathtracing.accel import bvh as bvh_mod, meshes, tri
+    from ascendpathtracing.ops import pallas_bvh
+    from ascendpathtracing.utils import profiling
 
+    backend.require_gpu("benchmarks/irregular_mesh.py")
     scenes = {
         "uniform-icosphere-s6": meshes.icosphere(
             center=(50, 40, 60), radius=14.0, subdivisions=6),
-        "clustered-2big-8small": meshes.clustered_icospheres(
-            clustered_specs()),
+        "clustered-2big-8small": meshes.clustered_icospheres(clustered_specs()),
     }
-    art = {"backend": jax.default_backend(),
-           "config": vars(args), "scenes": {}}
-
+    dev0 = jax.devices()[0]
+    art = {"platform": dev0.platform, "device_kind": dev0.device_kind,
+           "rays": args.rays, "scenes": {}}
     for name, (v, f) in scenes.items():
         v32 = np.asarray(v, np.float32)
-        n_tris = int(np.asarray(f).shape[0])
-        entry = {"tris": n_tris, "rows": {}}
-
-        # ---- traversal row (BASELINE methodology: sorted incoherent) --
-        n = args.rays
+        bvh = bvh_mod.build_bvh(v32, f)
+        planes = tri.triangle_planes(v32, f, dtype=np.float32)
+        ordered = tuple(tuple(q[bvh.tri_order] for q in t) for t in planes)
+        tables = pallas_bvh.pack_bvh(bvh, ordered)
+        # incoherent rays: origins in the mesh's (padded) box, uniform dirs
         rng = np.random.RandomState(0)
         lo, hi = v32.min(0), v32.max(0)
         ext = hi - lo
-        o2 = (lo - 0.1 * ext + rng.rand(3, n).astype(np.float32).T
-              * (1.2 * ext)).T.astype(np.float32)
-        d2 = rng.randn(3, n).astype(np.float32)
-        d2 /= np.linalg.norm(d2, axis=0, keepdims=True)
-        r_in = jnp.asarray(np.concatenate([o2, d2], 0))
-        keys = rs.ray_sort_keys_6d(
-            (r_in[0], r_in[1], r_in[2]), (r_in[3], r_in[4], r_in[5]),
-            jnp.asarray(lo), jnp.asarray(hi))
-        srt = jax.lax.sort((keys,) + tuple(r_in[i] for i in range(6)),
-                           num_keys=1)
-        r_sorted = jnp.stack(srt[1:], 0)
-
-        n_ch = -(-n_tris // args.chunk_tris)
-        supers_per = 16 if n_ch >= 128 else 0
-        n_s = -(-n_ch // supers_per) if supers_per else 0
-        supers2_per = 16 if n_s >= 256 else 0
-        grid = wbvh.build_chunk_grid(
-            v32, np.asarray(f), tris_per_chunk=args.chunk_tris,
-            supers_per=supers_per, supers2_per=supers2_per)
-        cb, sb, t13, _ = wbvh.chunk_grid_to_device(grid)
-        ssb = jnp.asarray(grid.ssboxes) if grid.n_supers2 else None
-
-        # chunk-geometry skew: the grid-build side of non-uniformity
-        cbx = np.asarray(grid.cboxes)
-        vol = np.prod(np.maximum(cbx[:, 3:] - cbx[:, :3], 1e-12), 1)
-        entry["chunk_volume"] = {
-            "p50": float(np.percentile(vol, 50)),
-            "p95": float(np.percentile(vol, 95)),
-            "max": float(vol.max()),
-            "spread_p95_over_p50": round(
-                float(np.percentile(vol, 95) / np.percentile(vol, 50)), 1),
+        o = (lo - 0.1 * ext + rng.rand(args.rays, 3) * 1.2 * ext).astype(np.float32)
+        d = rng.randn(args.rays, 3).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        rp = jnp.asarray(np.concatenate([o, d], 1).T)
+        block, warps = pallas_bvh.launch_config(tables, max_leaf=bvh.max_leaf)
+        kern = jax.jit(lambda r: pallas_bvh.intersect_bvh_pallas(
+            r, *tables, max_leaf=bvh.max_leaf, block=block, num_warps=warps))
+        o3 = tuple(jnp.asarray(o[:, i]) for i in range(3))
+        d3 = tuple(jnp.asarray(d[:, i]) for i in range(3))
+        bdev = bvh_mod.bvh_to_device(bvh)
+        geom = tuple(tuple(jnp.asarray(q) for q in t) for t in ordered)
+        xla = jax.jit(lambda o3, d3: bvh_mod.intersect_bvh(
+            o3, d3, bdev, geom, 1e-4, bvh.max_leaf)[:2])
+        tk, hk = map(np.asarray, kern(rp))
+        tj, hj = map(np.asarray, xla(o3, d3))
+        hit = tk < 1e19
+        k_res = profiling.benchmark(lambda i: kern(rp), iters=args.iters)
+        x_res = profiling.benchmark(lambda i: xla(o3, d3), iters=args.iters)
+        entry = {
+            "tris": int(np.asarray(f).shape[0]), "nodes": bvh.n_nodes,
+            "hit_frac": float(hit.mean()),
+            "same_ids": bool((hit == (tj < 1e19)).all()
+                             and (hk[hit] == hj[hit]).all()),
+            "kernel_ms": k_res["step_s"] * 1e3, "xla_ms": x_res["step_s"] * 1e3,
+            "launch": [block, warps],
         }
-
-        def trav(r, stats):
-            return wbvh.intersect_chunks_pallas(
-                r, cb, sb, t13, ssb, tris_per_chunk=args.chunk_tris,
-                supers_per=grid.supers_per, supers2_per=grid.supers2_per,
-                tile=1024, stats=stats)
-
-        step_t = jax.jit(lambda r: trav(r, False))
-        *_o, kst = jax.jit(lambda r: trav(r, True))(r_sorted)
-        kst = np.asarray(kst).T  # -> [tiles, 3]
-        fit = profiling.benchmark_fit(lambda i: step_t(r_sorted),
-                                      iters=args.iters)
-        entry["rows"]["traversal_sorted_incoherent"] = {
-            "mrays_per_s": round(n / fit["step_s"] / 1e6, 2),
-            "ms": round(fit["step_s"] * 1e3, 2),
-            "fit_ok": fit["fit_ok"],
-            "worklist_k": occupancy(kst[:, 0]),
-            "hit_supers": occupancy(kst[:, 1]),
-            "hit_ss": occupancy(kst[:, 2]),
-            "chunks": grid.n_chunks, "supers": grid.n_supers,
-            "supers2": grid.n_supers2,
-        }
-        print(name, json.dumps(entry["rows"]["traversal_sorted_incoherent"]),
-              flush=True)
-
-        # ---- fused PT rows -------------------------------------------
-        ms = mesh_mod.MeshScene.cornell_with_mesh(
-            v, f, albedo=(0.85, 0.55, 0.2), base_scene="smallpt9")
-        planes, cbp, sbp, t24, mats, pgrid = mpt.mesh_pt_tables(
-            ms, tris_per_chunk=args.chunk_tris)
-        kw = mpt.pt_tables_kwargs(pgrid)
-        w = h = args.size
-        spp = args.spp
-        total = w * h * spp
-
-        def fused(seed, stats):
-            return mpt.render_pt_mesh_pallas(
-                planes, cbp, sbp, t24, width=w, height=h, spp4=spp,
-                materials=mats, bounces=args.bounces, rr_depth=5,
-                tile=1024, seed=seed, with_stats=stats, **kw)
-
-        step_f = jax.jit(lambda s: fused(s, False))
-        _c, kstf = jax.jit(lambda s: fused(s, True))(jnp.int32(0))
-        kstf = np.asarray(kstf).T  # -> [cells, 3*bounces]
-        k_b = kstf[:, :args.bounces]
-        fitf = profiling.benchmark_fit(lambda i: step_f(jnp.int32(i)),
-                                       iters=max(2, args.iters // 2),
-                                       max_seconds=240.0)
-        entry["rows"]["fused_pt_fwd"] = {
-            "mrays_per_s": round(total / fitf["step_s"] / 1e6, 3),
-            "ms": round(fitf["step_s"] * 1e3, 1),
-            "fit_ok": fitf["fit_ok"],
-            "worklist_k": occupancy(k_b),
-            "k_by_bounce": [round(float(k_b[:, b].mean()), 1)
-                            for b in range(args.bounces)],
-            "image_mean": round(float(np.asarray(_c).mean()), 5),
-        }
-        print(name, json.dumps(entry["rows"]["fused_pt_fwd"]), flush=True)
-
-        if not args.skip_bwd:
-            from ascendpathtracing_tpu.diff import mesh_fused as dmf
-
-            t24j = jnp.asarray(t24)
-            render_d = dmf.make_render_pt_mesh_pallas_diff(
-                cbp, sbp, t24j[:, :16], t24j[:, 22:24], width=w, height=h,
-                spp4=spp, materials=mats, bounces=args.bounces, rr_depth=5,
-                tile=1024, **kw)
-            alb0, emi0 = t24j[:, 16:19], t24j[:, 19:22]
-            planes32 = planes.astype(jnp.float32)
-            step_d = jax.jit(jax.value_and_grad(
-                lambda p, a, e: jnp.sum(render_d(p, a, e)),
-                argnums=(0, 1, 2)))
-            fitd = profiling.benchmark_fit(
-                lambda i: step_d(planes32, alb0, emi0),
-                iters=max(2, args.iters // 2), max_seconds=240.0)
-            entry["rows"]["fused_pt_fwd_bwd"] = {
-                "mrays_per_s": round(total / fitd["step_s"] / 1e6, 3),
-                "ms": round(fitd["step_s"] * 1e3, 1),
-                "fit_ok": fitd["fit_ok"],
-            }
-            print(name, json.dumps(entry["rows"]["fused_pt_fwd_bwd"]),
-                  flush=True)
-
         art["scenes"][name] = entry
-
-    u = art["scenes"]["uniform-icosphere-s6"]["rows"]
-    c = art["scenes"]["clustered-2big-8small"]["rows"]
-    art["degradation_clustered_over_uniform"] = {
-        row: round(u[row]["mrays_per_s"] / max(c[row]["mrays_per_s"], 1e-9), 2)
-        for row in u
-        if row in c
-    }
-    with open(args.out, "w") as fh:
-        json.dump(art, fh, indent=1)
-    print(json.dumps({"written": args.out,
-                      "degradation": art[
-                          "degradation_clustered_over_uniform"]}))
+        print(json.dumps({"scene": name, **entry}), flush=True)
+    print(json.dumps(art))
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(art, fh, indent=1)
     return 0
 
 

@@ -1,15 +1,13 @@
 """Where-did-the-cycles-go: capture a device trace of ONE render step
-and print the per-op duration table (the workflow that found r3's
-bottlenecks: traversal 44% / scatter-add 36% / sort 13% of a wavefront
-mesh frame).
+and print the per-op duration table.
 
 The reference's analogue is the camodel simulator run (`run.sh -r sim`,
 waveforms under CAMODEL_LOG_PATH); here `jax.profiler` wraps one fenced
-step and the trace.json.gz is summed by op name.  Works on the real TPU
-and (less usefully) on CPU.
+step and the trace.json.gz is summed by op name.  Works on the GPU and
+(less usefully) on CPU.
 
 Usage:
-  python benchmarks/profile_frame.py --renderer pallas-pt [--top 25]
+  python benchmarks/profile_frame.py --renderer jit [--top 25]
   python benchmarks/profile_frame.py --renderer wavefront-mesh --subdiv 4
   python benchmarks/profile_frame.py --renderer xla-mesh --keep-trace DIR
 
@@ -36,9 +34,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     p = argparse.ArgumentParser()
     p.add_argument("--renderer",
-                   choices=["pallas-pt", "wavefront", "wavefront-mesh",
-                            "xla-mesh", "pallas-mesh", "jit"],
-                   default="pallas-pt")
+                   choices=["wavefront", "wavefront-mesh", "xla-mesh", "jit"],
+                   default="jit")
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--spp", type=int, default=16)
@@ -54,15 +51,15 @@ def main(argv=None) -> int:
     import jax.numpy as jnp
     import numpy as np
 
-    from ascendpathtracing_tpu import camera, scenes
-    from ascendpathtracing_tpu.utils import profiling
+    from ascendpathtracing import camera, scenes
+    from ascendpathtracing.utils import profiling
 
     w, h, spp4 = args.width, args.height, args.spp
     key = jax.random.PRNGKey(0)
 
-    if args.renderer in ("wavefront-mesh", "xla-mesh", "pallas-mesh"):
-        from ascendpathtracing_tpu.accel import meshes
-        from ascendpathtracing_tpu.models import mesh as mesh_mod
+    if args.renderer in ("wavefront-mesh", "xla-mesh"):
+        from ascendpathtracing.accel import meshes
+        from ascendpathtracing.models import mesh as mesh_mod
 
         v, f = meshes.icosphere(
             center=(50, 40, 60), radius=14.0, subdivisions=args.subdiv
@@ -70,56 +67,27 @@ def main(argv=None) -> int:
         ms = mesh_mod.MeshScene.cornell_with_mesh(
             v, f, albedo=(0.85, 0.55, 0.2), base_scene="smallpt9"
         )
-        if args.renderer == "pallas-mesh":
-            from ascendpathtracing_tpu.ops import pallas_mesh_pt as mpt
-
-            planes, cb, sb, t24, mats, grid = mpt.mesh_pt_tables(ms)
+        mdev = mesh_mod.mesh_scene_to_device(ms)
+        if args.renderer == "wavefront-mesh":
+            from ascendpathtracing.models import wavefront as wf
 
             def run(i):
-                return mpt.render_pt_mesh_pallas(
-                    planes, cb, sb, t24, width=w, height=h, spp4=spp4,
-                    materials=mats, tris_per_chunk=grid.tris_per_chunk,
-                    supers_per=grid.supers_per, bounces=args.bounces,
-                    tile=2048, seed=i,
+                return wf.render_wavefront_mesh(
+                    jax.random.fold_in(key, i), mdev, width=w, height=h,
+                    spp4=spp4, pool=args.pool, bounces=args.bounces,
                 )
         else:
-            mdev = mesh_mod.mesh_scene_to_device(
-                ms, pallas_bvh_kernel=(jax.default_backend() == "tpu")
+            rays = jnp.asarray(
+                camera.generate_rays_numpy(w, h, 1, seed=0).astype(np.float32)
             )
-            if args.renderer == "wavefront-mesh":
-                from ascendpathtracing_tpu.models import wavefront as wf
 
-                def run(i):
-                    return wf.render_wavefront_mesh(
-                        jax.random.fold_in(key, i), mdev, width=w, height=h,
-                        spp4=spp4, pool=args.pool, bounces=args.bounces,
-                    )
-            else:
-                rays = jnp.asarray(
-                    camera.generate_rays_numpy(w, h, 1, seed=0).astype(
-                        np.float32
-                    )
+            def run(i):
+                return mesh_mod.render_pt_mesh(
+                    jax.random.fold_in(key, i), rays, mdev,
+                    bounces=args.bounces,
                 )
-
-                def run(i):
-                    return mesh_mod.render_pt_mesh(
-                        jax.random.fold_in(key, i), rays, mdev,
-                        bounces=args.bounces,
-                    )
-    elif args.renderer == "pallas-pt":
-        from ascendpathtracing_tpu.ops import pallas_kernels as pk
-
-        sc = scenes.cornell8()
-        planes = jnp.asarray(sc.soa10())
-        mats = tuple(int(m) for m in sc.material)
-
-        def run(i):
-            return pk.render_pt_pallas(
-                planes, width=w, height=h, spp4=spp4, materials=mats,
-                bounces=args.bounces, tile=2048, seed=i,
-            )
     elif args.renderer == "wavefront":
-        from ascendpathtracing_tpu.models import megakernel, wavefront as wf
+        from ascendpathtracing.models import megakernel, wavefront as wf
 
         scene = megakernel.scene_to_device(scenes.cornell8())
 
@@ -129,7 +97,7 @@ def main(argv=None) -> int:
                 spp4=spp4, pool=args.pool, bounces=args.bounces,
             )
     else:  # jit
-        from ascendpathtracing_tpu.models import megakernel
+        from ascendpathtracing.models import megakernel
 
         scene = megakernel.scene_to_device(scenes.cornell8())
         rays = jnp.asarray(
@@ -141,13 +109,11 @@ def main(argv=None) -> int:
                 jax.random.fold_in(key, i), rays, scene, bounces=args.bounces
             )
 
-    out = run(0)
-    profiling.device_fence(out)  # compile + per-process warmup
+    jax.block_until_ready(run(0))  # compile + per-process warmup
 
     trace_dir = args.keep_trace or tempfile.mkdtemp(prefix="apt_trace_")
     with profiling.trace(trace_dir):
-        out = run(1)
-        profiling.device_fence(out)
+        jax.block_until_ready(run(1))
 
     files = glob.glob(os.path.join(trace_dir, "**/*.trace.json.gz"),
                       recursive=True)
@@ -172,7 +138,8 @@ def main(argv=None) -> int:
         }), flush=True)
     print(json.dumps({
         "renderer": args.renderer,
-        "backend": jax.default_backend(),
+        "platform": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind,
         "total_traced_ms": round(total / 1e3, 1),
         "trace": trace_dir if args.keep_trace else "(deleted)",
     }))

@@ -30,7 +30,7 @@ def main() -> int:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from ascendpathtracing_tpu.parallel import distributed as dist
+    from ascendpathtracing.parallel import distributed as dist
 
     if nproc > 1:
         jax.distributed.initialize(
@@ -44,8 +44,8 @@ def main() -> int:
     import jax.numpy as jnp
     import numpy as np
 
-    from ascendpathtracing_tpu import camera, parallel, scenes
-    from ascendpathtracing_tpu.models import megakernel
+    from ascendpathtracing import camera, parallel, scenes
+    from ascendpathtracing.models import megakernel
 
     mesh = dist.make_global_mesh()
     w = h = 8

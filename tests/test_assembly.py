@@ -13,9 +13,9 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from ascendpathtracing_tpu import camera, parallel, scenes  # noqa: E402
-from ascendpathtracing_tpu.models import megakernel  # noqa: E402
-from ascendpathtracing_tpu.utils import io  # noqa: E402
+from ascendpathtracing import camera, parallel, scenes  # noqa: E402
+from ascendpathtracing.models import megakernel  # noqa: E402
+from ascendpathtracing.utils import io  # noqa: E402
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
@@ -46,7 +46,7 @@ def test_sharded_assembly_ppm_byte_identical(tmp_path):
 def test_cli_shard_flag_renders_and_assembles(tmp_path):
     """--shard N runs the DP-sharded reference render through the normal
     CLI artifact pipeline; the PPM must equal the unsharded one."""
-    from ascendpathtracing_tpu import cli
+    from ascendpathtracing import cli
 
     args = [
         "render", "--width", "16", "--height", "16", "--samples", "1",

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ascendpathtracing_tpu.accel import bvh as bvh_mod
-from ascendpathtracing_tpu.accel import meshes, tri
+from ascendpathtracing.accel import bvh as bvh_mod
+from ascendpathtracing.accel import meshes, tri
 
 
 def _random_rays(n, rng, spread=4.0):

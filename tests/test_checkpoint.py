@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from ascendpathtracing_tpu.utils import checkpoint as ckpt
+from ascendpathtracing.utils import checkpoint as ckpt
 
 
 def test_roundtrip_nested_pytree(tmp_path, rng):
@@ -34,9 +34,9 @@ def test_training_resume_continues_loss_descent(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from ascendpathtracing_tpu import camera, scenes
-    from ascendpathtracing_tpu.models import megakernel
-    from ascendpathtracing_tpu.parallel.sharded import make_train_step, split_scene_params
+    from ascendpathtracing import camera, scenes
+    from ascendpathtracing.models import megakernel
+    from ascendpathtracing.parallel.sharded import make_train_step, split_scene_params
 
     rays = jnp.asarray(camera.generate_rays_numpy(8, 8, 1, seed=0).astype(np.float32))
     scene = megakernel.scene_to_device(scenes.cornell8())

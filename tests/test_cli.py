@@ -13,7 +13,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _run(args, timeout=420):
     return subprocess.run(
-        [sys.executable, "-m", "ascendpathtracing_tpu.cli", *args],
+        [sys.executable, "-m", "ascendpathtracing.cli", *args],
         cwd=REPO,
         capture_output=True,
         text=True,
@@ -32,7 +32,7 @@ def test_render_reference_end_to_end(tmp_path):
     for f in ("rays.bin", "spheres.bin", "color.bin", "color.ppm"):
         assert (tmp_path / f).exists(), f
     # reference formats are readable
-    from ascendpathtracing_tpu.utils import io
+    from ascendpathtracing.utils import io
 
     rays = io.read_rays_bin(str(tmp_path / "rays.bin"))
     assert rays.shape == (1024, 6)
@@ -67,7 +67,7 @@ def test_train_and_resume(tmp_path):
 def test_cli_render_wavefront_renderer(tmp_path):
     """--renderer wavefront routes pt scenes through the pool renderer
     (sphere and mesh), and refuses reference mode."""
-    from ascendpathtracing_tpu import cli
+    from ascendpathtracing import cli
 
     rc = cli.main([
         "render", "--width", "8", "--height", "8", "--samples", "1",
@@ -81,3 +81,38 @@ def test_cli_render_wavefront_renderer(tmp_path):
         "wavefront", "--backend", "cpu", "--out", str(tmp_path),
     ])
     assert rc == 2
+
+
+@pytest.mark.parametrize("scene,extra", [
+    ("cornell8", ["--mode", "reference"]),
+    ("mesh-icosphere:1", ["--mode", "pt", "--bounces", "2"]),
+])
+def test_cli_pallas_renderer_runs_in_interpreter_only_when_asked(
+        tmp_path, scene, extra):
+    """--renderer pallas runs the kernels in the interpreter under
+    --backend cpu (and says so); without a GPU and without --backend cpu
+    it is an error, never a silent fallback."""
+    from ascendpathtracing import cli
+
+    args = ["render", "--width", "8", "--height", "8", "--scene", scene,
+            "--renderer", "pallas", "--out", str(tmp_path), *extra]
+    r = _run(args + ["--backend", "cpu"])
+    assert r.returncode == 0, r.stderr[-2000:]
+    stats = json.loads(r.stdout.strip().splitlines()[-1])
+    assert stats["kernels"] is True and stats["interpret"] is True
+    assert cli.main(args) == 2
+
+
+def test_cli_requires_gpu_when_asked():
+    r = _run(["render", "--width", "8", "--height", "8", "--backend", "gpu"])
+    assert r.returncode == 2
+    assert "requested gpu" in r.stderr
+
+
+def test_cli_auto_renderer_takes_xla_on_cpu(tmp_path):
+    r = _run(["render", "--width", "8", "--height", "8", "--backend", "cpu",
+              "--scene", "mesh-icosphere:1", "--mode", "pt", "--bounces", "2",
+              "--out", str(tmp_path)])
+    assert r.returncode == 0, r.stderr[-2000:]
+    stats = json.loads(r.stdout.strip().splitlines()[-1])
+    assert stats["kernels"] is False and stats["interpret"] is False

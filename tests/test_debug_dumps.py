@@ -8,7 +8,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from ascendpathtracing_tpu.utils import debug as dbg  # noqa: E402
+from ascendpathtracing.utils import debug as dbg  # noqa: E402
 
 
 def test_print_data_typed_dump(capsys):
@@ -53,73 +53,3 @@ def test_kernel_dump_in_interpret_kernel(capfd):
     text = captured.out + captured.err
     # gated on cell 0: exactly one print despite a 2-cell grid
     assert text.count("tile sum") == 1, text
-
-
-def test_wbvh_debug_flag_dumps_worklist(capfd):
-    """The wired call site: intersect_chunks_pallas(debug=True) prints
-    one worklist length per tile."""
-    from ascendpathtracing_tpu.accel import meshes
-    from ascendpathtracing_tpu.ops import pallas_wbvh as W
-
-    v, f = meshes.icosphere(subdivisions=2)
-    v32 = np.asarray(v, np.float32)
-    grid = W.build_chunk_grid(v32, f, tris_per_chunk=32)
-    cb, sb, t13, _ = W.chunk_grid_to_device(grid)
-    rng = np.random.RandomState(0)
-    o = rng.randn(3, 2048).astype(np.float32)
-    o /= np.linalg.norm(o, axis=0)
-    o *= 3.0
-    d = rng.randn(3, 2048).astype(np.float32)
-    d /= np.linalg.norm(d, axis=0)
-    rays = jnp.asarray(np.concatenate([o, d], 0))
-    tmin, hit = W.intersect_chunks_pallas(
-        rays, cb, sb, t13, tris_per_chunk=32, tile=1024, interpret=True,
-        debug=True,
-    )
-    jax.block_until_ready(tmin)
-    captured = capfd.readouterr()
-    text = captured.out + captured.err
-    assert text.count("wbvh tile worklist k") == 2, text  # one per tile
-
-
-def test_sphere_pt_debug_flag_dumps_alive(capfd):
-    """The sphere PT flagship's debug hook: one alive-count line per
-    bounce, gated on grid cell 0 (VERDICT r3 ask 7)."""
-    from ascendpathtracing_tpu import scenes
-    from ascendpathtracing_tpu.ops import pallas_kernels as pk
-
-    scene = scenes.cornell8()
-    planes = jnp.asarray(scene.soa10())
-    mats = tuple(int(m) for m in scene.material)
-    out = pk.render_pt_pallas(
-        planes, width=32, height=32, spp4=4, materials=mats, bounces=3,
-        rr_depth=2, tile=1024, interpret=True, debug=True,
-    )
-    jax.block_until_ready(out)
-    text = "".join(capfd.readouterr())
-    assert text.count("pt_pallas alive") == 3, text  # one per bounce
-
-
-def test_mesh_pt_debug_flag_dumps_worklist_and_alive(capfd):
-    """The fused mesh PT flagship's debug hooks: per-bounce worklist
-    length AND alive count on grid cell 0 (VERDICT r3 ask 7)."""
-    from ascendpathtracing_tpu.accel import meshes
-    from ascendpathtracing_tpu.models import mesh as mesh_mod
-    from ascendpathtracing_tpu.ops import pallas_mesh_pt as mpt
-
-    v, f = meshes.icosphere(center=(50, 40, 60), radius=14.0, subdivisions=1)
-    ms = mesh_mod.MeshScene.cornell_with_mesh(
-        v, f, albedo=(0.85, 0.55, 0.2), base_scene="smallpt9"
-    )
-    planes, cb, sb, t24, mats, grid = mpt.mesh_pt_tables(
-        ms, tris_per_chunk=8, supers_per=0
-    )
-    out = mpt.render_pt_mesh_pallas(
-        planes, cb, sb, t24, width=32, height=32, spp4=4, materials=mats,
-        tris_per_chunk=grid.tris_per_chunk, supers_per=grid.supers_per,
-        bounces=2, rr_depth=2, tile=1024, interpret=True, debug=True,
-    )
-    jax.block_until_ready(out)
-    text = "".join(capfd.readouterr())
-    assert text.count("mesh_pt worklist k") == 2, text  # one per bounce
-    assert text.count("mesh_pt alive") == 2, text

@@ -12,8 +12,8 @@ import os
 import numpy as np
 import pytest
 
-from ascendpathtracing_tpu import camera, oracle, scenes
-from ascendpathtracing_tpu.utils import io
+from ascendpathtracing import camera, oracle, scenes
+from ascendpathtracing.utils import io
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
@@ -43,7 +43,7 @@ def test_renderer_close_to_golden():
     4 subpixel rays are flip-free must match the golden EXACTLY."""
     import jax.numpy as jnp
 
-    from ascendpathtracing_tpu.models import megakernel
+    from ascendpathtracing.models import megakernel
 
     w = h = 16
     b = 5
@@ -86,8 +86,8 @@ def _mesh_gbuffer_image(w=32, h=32):
     dependence), quantized to u8 — robust to last-ulp FP drift."""
     import jax.numpy as jnp
 
-    from ascendpathtracing_tpu.accel import meshes
-    from ascendpathtracing_tpu.models import mesh as mesh_mod
+    from ascendpathtracing.accel import meshes
+    from ascendpathtracing.models import mesh as mesh_mod
 
     v, f = meshes.cube(center=(50, 30, 60), size=25.0)
     ms = mesh_mod.MeshScene.cornell_with_mesh(v, f, albedo=(0.8, 0.5, 0.2))
@@ -127,7 +127,7 @@ def pt_golden_image(w=64, h=64, s=4, bounces=5, rr_depth=3):
     import jax
     import jax.numpy as jnp
 
-    from ascendpathtracing_tpu.models import megakernel
+    from ascendpathtracing.models import megakernel
 
     sc = scenes.smallpt9()
     dev = megakernel.scene_to_device(sc, dtype=jnp.float64)
@@ -168,8 +168,8 @@ def mesh_pt_golden_image(w=32, h=32, s=4, bounces=5, rr_depth=3):
     import jax
     import jax.numpy as jnp
 
-    from ascendpathtracing_tpu.accel import meshes
-    from ascendpathtracing_tpu.models import mesh as mesh_mod
+    from ascendpathtracing.accel import meshes
+    from ascendpathtracing.models import mesh as mesh_mod
 
     v, f = meshes.cube(center=(50, 30, 60), size=25.0)
     ms = mesh_mod.MeshScene.cornell_with_mesh(v, f, albedo=(0.8, 0.5, 0.2))

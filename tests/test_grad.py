@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ascendpathtracing_tpu import camera as cam_np
-from ascendpathtracing_tpu import scenes
-from ascendpathtracing_tpu.diff import CameraParams, camera_rays, check_grads_fd
-from ascendpathtracing_tpu.models import megakernel
+from ascendpathtracing import camera as cam_np
+from ascendpathtracing import scenes
+from ascendpathtracing.diff import CameraParams, camera_rays, check_grads_fd
+from ascendpathtracing.models import megakernel
 
 W = H = 12
 BOUNCES = 3
@@ -83,12 +83,18 @@ def test_geometry_gradients_match_fd_depth_aov(setup):
     )
 
 
-def test_camera_gradients_match_fd_depth_aov(setup):
+@pytest.mark.parametrize("samples,jittered", [(1, False), (1, True), (2, True)])
+def test_camera_gradients_match_fd_depth_aov(setup, samples, jittered):
+    """Camera position, direction and fov gradients through
+    diff/camera.py vs central finite differences, with and without a
+    fixed tent-filter jitter and with several samples per pixel."""
     _, scene, _ = setup
-    jitter = jnp.zeros((W * H * 4, 2), jnp.float64)
+    n = W * H * 4 * samples
+    jitter = (jnp.asarray(np.random.RandomState(samples).uniform(-0.9, 0.9, (n, 2)))
+              if jittered else jnp.zeros((n, 2), jnp.float64))
 
     def loss(p):
-        rays = camera_rays(p, W, H, 1, jitter=jitter)
+        rays = camera_rays(p, W, H, samples, jitter=jitter)
         return jnp.mean(megakernel.render_depth_impl(rays, scene) ** 2) * 1e-4
 
     params = CameraParams(dtype=jnp.float64)

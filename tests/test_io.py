@@ -6,8 +6,8 @@ data_visualization.py:61-89) plus round-trip coverage of every bin format.
 
 import numpy as np
 
-from ascendpathtracing_tpu import scenes
-from ascendpathtracing_tpu.utils import io
+from ascendpathtracing import scenes
+from ascendpathtracing.utils import io
 
 
 def test_rays_bin_roundtrip(tmp_path, rng):

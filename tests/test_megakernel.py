@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ascendpathtracing_tpu import camera, scenes
-from ascendpathtracing_tpu.models import megakernel
+from ascendpathtracing import camera, scenes
+from ascendpathtracing.models import megakernel
 
 
 def _rays(w=32, h=32, s=1, seed=0):

@@ -4,10 +4,11 @@ match brute-force renders, and the combined scene must render sensibly."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from ascendpathtracing_tpu import camera
-from ascendpathtracing_tpu.accel import meshes
-from ascendpathtracing_tpu.models import mesh as mesh_mod
+from ascendpathtracing import camera
+from ascendpathtracing.accel import meshes
+from ascendpathtracing.models import mesh as mesh_mod
 
 
 def _scene(subdiv=1):
@@ -71,34 +72,53 @@ def test_mesh_emissive_lights_work():
     assert img.max() > 0.5, "emissive mesh should light the box"
 
 
-def test_first_hit_chunks_kernel_matches_brute():
-    """The chunked Pallas traversal (interpret mode) inside the renderer
+@pytest.mark.parametrize("subdiv", [1, 2])
+def test_first_hit_traversal_kernel_matches_brute(subdiv):
+    """The Pallas traversal kernel (interpret mode) inside the renderer
     agrees with brute force: same kind, same winning face, t to f32
-    rounding of the plane-form recompute."""
-    ms = _scene(subdiv=2)
+    rounding."""
+    ms = _scene(subdiv=subdiv)
     rays = camera.generate_rays_numpy(24, 24, 1, seed=0).astype(np.float32)
-    dev_c = mesh_mod.mesh_scene_to_device(ms, pallas_bvh_kernel=True)
+    dev_k = mesh_mod.mesh_scene_to_device(ms, kernel=True, interpret=True)
+    assert dev_k["static"].traversal == "kernel"
     dev_n = mesh_mod.mesh_scene_to_device(ms, dtype=jnp.float32, use_bvh=False)
-    t_c, k_c, h_c = mesh_mod.first_hit_mesh(jnp.asarray(rays), dev_c)
+    t_k, k_k, h_k = mesh_mod.first_hit_mesh(jnp.asarray(rays), dev_k)
     t_n, k_n, h_n = mesh_mod.first_hit_mesh(jnp.asarray(rays), dev_n)
-    np.testing.assert_array_equal(np.asarray(k_c), np.asarray(k_n))
+    np.testing.assert_array_equal(np.asarray(k_k), np.asarray(k_n))
     tri_hit = np.asarray(k_n) == 2
     assert tri_hit.sum() > 50
-    fos = np.asarray(dev_c["face_of_slot"])
+    order = np.asarray(dev_k["face_order"])
     np.testing.assert_array_equal(
-        fos[np.asarray(h_c)[tri_hit]], np.asarray(h_n)[tri_hit]
+        order[np.asarray(h_k)[tri_hit]], np.asarray(h_n)[tri_hit]
     )
     np.testing.assert_allclose(
-        np.asarray(t_c)[tri_hit], np.asarray(t_n)[tri_hit], rtol=1e-4
+        np.asarray(t_k)[tri_hit], np.asarray(t_n)[tri_hit], rtol=1e-4
     )
 
 
-def test_render_pt_mesh_chunks_smoke_and_determinism():
+def test_render_pt_mesh_kernel_smoke_and_determinism():
     ms = _scene(subdiv=1)
     rays = camera.generate_rays_numpy(16, 16, 1, seed=0).astype(np.float32)
-    dev = mesh_mod.mesh_scene_to_device(ms, pallas_bvh_kernel=True)
+    dev = mesh_mod.mesh_scene_to_device(ms, kernel=True, interpret=True)
     key = jax.random.PRNGKey(0)
     a = np.asarray(mesh_mod.render_pt_mesh(key, rays, dev, bounces=4))
     b = np.asarray(mesh_mod.render_pt_mesh(key, rays, dev, bounces=4))
     np.testing.assert_array_equal(a, b)
     assert np.isfinite(a).all() and a.min() >= 0 and a.max() > 0.1
+    # same estimator as the jnp walk over the same BVH
+    dev_j = mesh_mod.mesh_scene_to_device(ms, kernel=False)
+    c = np.asarray(mesh_mod.render_pt_mesh(key, rays, dev_j, bounces=4))
+    assert abs(a.mean() - c.mean()) <= 0.02 * c.mean()
+
+
+def test_default_traversal_follows_the_backend():
+    """backend.py decides: the kernel on a GPU, the jnp walk elsewhere;
+    asking for the compiled kernel on the CPU is an error."""
+    ms = _scene(subdiv=1)
+    assert mesh_mod.mesh_scene_to_device(ms)["static"].traversal == "jnp"
+    assert mesh_mod.mesh_scene_to_device(ms, use_bvh=False)["static"].traversal == "brute"
+    with pytest.raises(RuntimeError, match="need a GPU"):
+        mesh_mod.mesh_scene_to_device(ms, kernel=True)
+    with pytest.raises(ValueError, match="use_bvh"):
+        mesh_mod.mesh_scene_to_device(ms, kernel=True, use_bvh=False,
+                                      interpret=True)

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ascendpathtracing_tpu.accel import bvh as bvh_mod
-from ascendpathtracing_tpu.accel import meshes, tri
+from ascendpathtracing.accel import bvh as bvh_mod
+from ascendpathtracing.accel import meshes, tri
 
-native = pytest.importorskip("ascendpathtracing_tpu.accel.native")
+native = pytest.importorskip("ascendpathtracing.accel.native")
 
 pytestmark = pytest.mark.skipif(
     not native.is_available(), reason="native toolchain unavailable"

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from ascendpathtracing_tpu.accel import native
-from ascendpathtracing_tpu.utils import io
+from ascendpathtracing.accel import native
+from ascendpathtracing.utils import io
 
 
 needs_native = pytest.mark.skipif(

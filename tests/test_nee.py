@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ascendpathtracing_tpu import camera, scenes
-from ascendpathtracing_tpu.models import megakernel as mk
+from ascendpathtracing import camera, scenes
+from ascendpathtracing.models import megakernel as mk
 
 
 def _samples(scene_name, fn, key, w=12, h=12, spp4=64, bounces=5):

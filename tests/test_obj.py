@@ -8,7 +8,7 @@ BASELINE config-3 build-out.
 import numpy as np
 import pytest
 
-from ascendpathtracing_tpu.accel import meshes
+from ascendpathtracing.accel import meshes
 
 
 def test_obj_roundtrip(tmp_path):
@@ -54,7 +54,7 @@ def test_transform():
 
 def test_cli_renders_obj_mesh(tmp_path):
     """mesh-obj:<path> goes through load -> auto-fit -> BVH -> render."""
-    from ascendpathtracing_tpu import cli
+    from ascendpathtracing import cli
 
     v, f = meshes.cube(size=2.0)
     obj = tmp_path / "cube.obj"
@@ -73,7 +73,7 @@ def test_native_loader_matches_python(tmp_path):
     """The C++ OBJ loader (native/obj_loader.cpp) must parse identically
     to the Python reference parser, including polygons, vt/vn tuples and
     negative indices; skips if the toolchain is unavailable."""
-    from ascendpathtracing_tpu.accel import native as native_mod
+    from ascendpathtracing.accel import native as native_mod
 
     if not native_mod.is_available():
         pytest.skip("native toolchain unavailable")
@@ -100,7 +100,7 @@ def test_native_loader_malformed_parity(tmp_path):
     """Malformed tokens must ERROR in both parsers, not silently load
     different geometry depending on which parser ran (ADVICE r3 low #2):
     Python's int()/float() raise, so the C++ loader must too."""
-    from ascendpathtracing_tpu.accel import native as native_mod
+    from ascendpathtracing.accel import native as native_mod
 
     if not native_mod.is_available():
         pytest.skip("native toolchain unavailable")

@@ -8,9 +8,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from ascendpathtracing_tpu import camera, scenes
-from ascendpathtracing_tpu.models import megakernel
-from ascendpathtracing_tpu.parallel.pipeline import (
+from ascendpathtracing import camera, scenes
+from ascendpathtracing.models import megakernel
+from ascendpathtracing.parallel.pipeline import (
     render_pt_ring_scene,
     render_reference_pipelined,
     render_reference_ring_scene,

@@ -12,8 +12,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ascendpathtracing_tpu import camera, post, scenes
-from ascendpathtracing_tpu.models import megakernel
+from ascendpathtracing import camera, post, scenes
+from ascendpathtracing.models import megakernel
 
 
 def test_tonemap_range_and_monotonicity():
@@ -130,7 +130,7 @@ def test_atrous_albedo_demodulation_roundtrip():
 
 
 def test_cli_post_pipeline(tmp_path):
-    from ascendpathtracing_tpu import cli
+    from ascendpathtracing import cli
 
     out = tmp_path / "r"
     rc = cli.main([
@@ -142,7 +142,7 @@ def test_cli_post_pipeline(tmp_path):
     for f in ("color.ppm", "final.ppm", "depth.ppm", "normal.ppm",
               "albedo.ppm"):
         assert (out / f).exists(), f
-    from ascendpathtracing_tpu.utils.io import read_ppm
+    from ascendpathtracing.utils.io import read_ppm
 
     img = read_ppm(str(out / "final.ppm"))
     assert img.shape == (16, 16, 3)

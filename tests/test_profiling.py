@@ -1,7 +1,6 @@
-"""benchmark_fit robustness (ADVICE r3 medium #1): a noise round whose
-slope comes out non-positive must be discarded (never clamped to 1e-12
-and published), and exhaustion without agreement must be flagged
-(fit_ok=False) with a conservative fallback, not a fabricated slope.
+"""Steady-state timing (utils/profiling.benchmark): warm-up calls are not
+timed, every timed step is fenced on its own result, and the statistics
+come from the per-step times.
 
 Timing is made deterministic by monkeypatching the module's clock: the
 fake ``fn`` advances a virtual clock by a scripted per-call duration.
@@ -11,7 +10,7 @@ import pytest
 
 pytest.importorskip("jax")
 
-from ascendpathtracing_tpu.utils import profiling  # noqa: E402
+from ascendpathtracing.utils import profiling  # noqa: E402
 
 
 class _FakeClock:
@@ -22,67 +21,52 @@ class _FakeClock:
         return self.now
 
 
-class _ScriptedStep:
-    """fn(i) that advances the fake clock; durations drawn from
-    ``schedule`` (a list consumed call-by-call, last value repeating)."""
-
-    def __init__(self, clock, schedule):
-        self.clock = clock
-        self.schedule = list(schedule)
-
-    def __call__(self, i):
-        d = self.schedule.pop(0) if len(self.schedule) > 1 else self.schedule[0]
-        self.clock.now += d
-        return None
-
-
 @pytest.fixture
 def fake_clock(monkeypatch):
     clock = _FakeClock()
     monkeypatch.setattr(profiling.time, "perf_counter", clock.perf_counter)
-    # device_fence(None) must not call jax (no leaves path is fine, but
-    # keep the fake fully hermetic)
-    monkeypatch.setattr(profiling, "device_fence", lambda out: 0.0)
     return clock
 
 
-def test_fit_constant_step_agrees(fake_clock):
-    fn = _ScriptedStep(fake_clock, [2e-3])
-    fit = profiling.benchmark_fit(fn, iters=2, warmup=1)
-    assert fit["fit_ok"] is True
-    assert fit["step_s"] == pytest.approx(2e-3, rel=1e-9)
+@pytest.mark.parametrize("warmup", [1, 2, 3])
+def test_warmup_steps_are_not_timed(fake_clock, warmup):
+    calls = []
+
+    def fn(i):
+        calls.append(i)
+        # a slow compile on the first call only
+        fake_clock.now += 5.0 if i == 0 else 2e-3
+        return i
+
+    res = profiling.benchmark(fn, iters=4, warmup=warmup)
+    assert calls == list(range(warmup + 4))
+    assert res["step_s"] == pytest.approx(2e-3)
+    assert res["max_s"] == pytest.approx(2e-3)
+    assert res["out"] == warmup + 3
 
 
-def test_fit_discards_nonpositive_slope_round(fake_clock):
-    # warmup(1), then batch(2) at 10ms/call = 20ms vs batch(6) at 1ms/call
-    # = 6ms -> negative slope -> the round must be DISCARDED (k doubles)
-    # and the later constant-2ms rounds must converge cleanly.
-    sched = [1e-3] + [10e-3] * 2 + [1e-3] * 6 + [2e-3]
-    fn = _ScriptedStep(fake_clock, sched)
-    fit = profiling.benchmark_fit(fn, iters=2, warmup=1)
-    assert fit["fit_ok"] is True
-    assert fit["step_s"] == pytest.approx(2e-3, rel=1e-9)
-    assert fit["step_s"] > 1e-6  # the old clamp would have published 1e-12
+def test_median_resists_one_slow_step(fake_clock):
+    durations = iter([1.0, 1e-3, 1e-3, 0.5, 1e-3, 2e-3])
+
+    def fn(i):
+        fake_clock.now += next(durations)
+        return i
+
+    res = profiling.benchmark(fn, iters=5, warmup=1)
+    assert res["iters"] == 5 and len(res["times"]) == 5
+    assert res["step_s"] == pytest.approx(1e-3)
+    assert res["min_s"] == pytest.approx(1e-3)
+    assert res["max_s"] == pytest.approx(0.5)
 
 
-def test_fit_exhaustion_flags_and_falls_back(fake_clock):
-    # every round invalid (each pair's first batch is slow, second fast,
-    # so t2 < t1 forever): fit_ok=False and step_s = the conservative
-    # t2/(3k) fallback, never a clamped 1e-12.
-    clock = fake_clock
-    costs = {0: 10e-3, 1: 0.5e-3}  # phase 0 = t1 batches, 1 = t2 batches
-    state = {"phase": 1}  # warmup fence flips this to 0 before t1
+def test_each_step_waits_for_its_result(monkeypatch):
+    import jax
 
-    def scripted(i):
-        clock.now += costs[state["phase"]]
-        return None
+    fenced = []
+    monkeypatch.setattr(jax, "block_until_ready", lambda x: fenced.append(x) or x)
+    profiling.benchmark(lambda i: ("out", i), iters=3, warmup=1)
+    assert fenced == [("out", 0), ("out", 1), ("out", 2), ("out", 3)]
 
-    # each batch ends with exactly one fence: toggle the phase there
-    profiling.device_fence = lambda out: state.update(
-        phase=1 - state["phase"]
-    ) or 0.0  # restored by the fixture's monkeypatch
 
-    fit = profiling.benchmark_fit(scripted, iters=2, warmup=1, max_rounds=3)
-    assert fit["fit_ok"] is False
-    # last round: k=8, t2 = 24 * 0.5ms -> fallback 0.5ms
-    assert fit["step_s"] == pytest.approx(0.5e-3, rel=1e-9)
+def test_mrays_counts_primary_rays():
+    assert profiling.mrays(4_000_000, 2.0) == pytest.approx(2.0)

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ascendpathtracing_tpu.ops import sort as rs
+from ascendpathtracing.ops import sort as rs
 
 
 def test_sort_is_permutation_and_groups_octants():
@@ -36,3 +36,24 @@ def test_morton_locality():
     iz = jnp.asarray([0, 0, 0, 1], jnp.int32)
     codes = np.asarray(rs.morton3(ix, iy, iz))
     assert codes[0] == 0 and codes[1] == 1 and codes[2] == 2 and codes[3] == 4
+
+
+def test_ray_sort_keys_6d_groups_direction():
+    # rays at one origin with two opposite directions must sort into two
+    # contiguous groups (the octant key would too); rays with slightly
+    # different directions in the same octant must still subgroup
+    n = 256
+    rng = np.random.RandomState(0)
+    o = tuple(jnp.zeros((n,), jnp.float32) for _ in range(3))
+    half = n // 2
+    dx = np.where(np.arange(n) < half, 1.0, -1.0).astype(np.float32)
+    dy = (rng.rand(n) * 0.1).astype(np.float32)
+    d = (jnp.asarray(dx), jnp.asarray(dy), jnp.zeros((n,), jnp.float32))
+    lo = jnp.asarray([-1.0, -1.0, -1.0])
+    hi = jnp.asarray([1.0, 1.0, 1.0])
+    keys = np.asarray(rs.ray_sort_keys_6d(o, d, lo, hi))
+    assert keys[:half].max() != keys[half:].max()
+    order = np.argsort(keys)
+    groups = (np.arange(n)[order] < half)
+    # one transition between the two direction groups
+    assert np.abs(np.diff(groups.astype(int))).sum() == 1

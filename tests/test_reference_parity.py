@@ -32,9 +32,9 @@ The gate matrix is therefore:
 import numpy as np
 import pytest
 
-from ascendpathtracing_tpu import camera, oracle, scenes
-from ascendpathtracing_tpu.models import megakernel
-from ascendpathtracing_tpu.utils import io
+from ascendpathtracing import camera, oracle, scenes
+from ascendpathtracing.models import megakernel
+from ascendpathtracing.utils import io
 
 from tests.reference_runner import run_reference_pipeline
 

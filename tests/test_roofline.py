@@ -1,19 +1,18 @@
 """Tests for the mechanical op counter behind the roofline accounting.
 
 The counter (utils/roofline.count_ops) supplies the numerators of
-benchmarks/roofline.py's per-kernel bounds; these tests pin its
+per-kernel roofline bounds; these tests pin its
 semantics on functions with hand-checkable counts: leaf classification,
 scan/pallas-grid multipliers, assigned while-loop trip counts, and
-dot_general MXU flops.  (The reference has no perf accounting at all to
+dot_general matmul flops.  (The reference has no perf accounting at all to
 mirror — SURVEY §6; this is BASELINE.json north-star tooling.)
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from ascendpathtracing_tpu.utils import roofline as rl
+from ascendpathtracing.utils import roofline as rl
 
 
 def test_simple_elementwise_counts():
@@ -66,7 +65,7 @@ def test_while_trips_assignment():
     assert len(c.whiles) == 1
     assert c.whiles[0]["trips"] == 10.0
     # 2*16 body flops + 1 loop-counter increment
-    assert c.whiles[0]["body_vpu_slots"] == 2 * 16 + 1
+    assert c.whiles[0]["body_vector_ops"] == 2 * 16 + 1
     # body flops scaled by the assigned trip count
     assert c.flops >= 10 * 2 * 16
 
@@ -74,7 +73,7 @@ def test_while_trips_assignment():
 def test_dot_general_mxu_flops():
     f = lambda a, b: a @ b
     c = rl.count_ops(f, jnp.ones((8, 32)), jnp.ones((32, 16)))
-    assert c.mxu_flops == 2 * 8 * 16 * 32
+    assert c.matmul_flops == 2 * 8 * 16 * 32
     assert c.flops == 0
 
 
@@ -112,32 +111,27 @@ def test_value_and_grad_counts_both_passes():
     assert both.flops > fwd.flops
 
 
-def test_mesh_pt_kernel_counts_and_while_structure():
-    """The real fused kernel traces with zero unknown primitives and the
-    expected data-dependent-loop structure (per scan: [super], chunk) —
-    the property benchmarks/roofline.py's trip assignment relies on."""
-    meshes = pytest.importorskip("ascendpathtracing_tpu.accel.meshes")
-    from ascendpathtracing_tpu.models import mesh as mesh_mod
-    from ascendpathtracing_tpu.ops import pallas_mesh_pt as mpt
+def test_bvh_kernel_counts_and_while_structure():
+    """The traversal kernel traces with zero unknown primitives and one
+    data-dependent loop (the per-block walk), whose body holds the slab
+    test and max_leaf triangle tests."""
+    from ascendpathtracing.accel import bvh as bvh_mod, meshes, tri
+    from ascendpathtracing.ops import pallas_bvh
 
-    v, f = meshes.icosphere(center=(50, 40, 60), radius=14.0,
-                            subdivisions=3)
-    ms = mesh_mod.MeshScene.cornell_with_mesh(
-        v, f, albedo=(0.85, 0.55, 0.2), base_scene="smallpt9")
-    planes, cb, sb, t24, mats, grid = mpt.mesh_pt_tables(
-        ms, tris_per_chunk=16)
-    kw = mpt.pt_tables_kwargs(grid)
+    v, f = meshes.icosphere(subdivisions=2)
+    v32 = np.asarray(v, np.float32)
+    bvh = bvh_mod.build_bvh_numpy(v32, f)
+    planes = tri.triangle_planes(v32, f, dtype=np.float32)
+    tables = pallas_bvh.pack_bvh(
+        bvh, tuple(tuple(p[bvh.tri_order] for p in t) for t in planes))
 
-    def step(s):
-        return mpt.render_pt_mesh_pallas(
-            planes, cb, sb, t24, width=32, height=32, spp4=4,
-            materials=mats, bounces=8, rr_depth=5, tile=1024, seed=s,
-            **kw)
+    def step(rays):
+        return pallas_bvh.intersect_bvh_pallas(
+            rays, *tables, max_leaf=bvh.max_leaf, block=256, interpret=True)
 
-    c = rl.count_ops(step, jnp.int32(0), default_while_trips=1.0)
+    c = rl.count_ops(step, jnp.ones((6, 1024), jnp.float32),
+                     default_while_trips=1.0)
     assert not c.other, c.other
-    # two scans (pre-RR 5 + RR 3), each with [super_body, chunk] loops
-    n_per_scan = 1 + (1 if grid.n_supers else 0) + (
-        1 if grid.n_supers2 else 0)
-    assert len(c.whiles) == 2 * n_per_scan
+    assert len(c.whiles) == 1
+    assert c.whiles[0]["mult"] == 4.0  # one walk per block
     assert c.flops > 0 and c.vops > 0 and c.hard > 0

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ascendpathtracing_tpu import camera, scenes
-from ascendpathtracing_tpu.models import megakernel, wavefront
+from ascendpathtracing import camera, scenes
+from ascendpathtracing.models import megakernel, wavefront
 
 
 def _pixel_mean_megakernel(key, w, h, spp4, scene, bounces):
@@ -78,8 +78,8 @@ def test_wavefront_mesh_matches_pt_mesh_statistically():
     """Mesh-scene wavefront (fused compaction+Morton sort, VERDICT item
     4) must agree in distribution with the bounce-loop mesh renderer on
     the same scene (independent RNG streams -> statistical gate)."""
-    from ascendpathtracing_tpu.accel import meshes as mesh_lib
-    from ascendpathtracing_tpu.models import mesh as mesh_mod
+    from ascendpathtracing.accel import meshes as mesh_lib
+    from ascendpathtracing.models import mesh as mesh_mod
 
     v, f = mesh_lib.cube(center=(50, 30, 60), size=30.0)
     ms = mesh_mod.MeshScene.cornell_with_mesh(v, f, albedo=(0.85, 0.55, 0.2))
@@ -109,8 +109,8 @@ def test_wavefront_mesh_matches_pt_mesh_statistically():
 def test_wavefront_mesh_pool_size_consistency():
     """Energy must be pool-size invariant (compaction/regeneration must
     not double-count or drop samples)."""
-    from ascendpathtracing_tpu.accel import meshes as mesh_lib
-    from ascendpathtracing_tpu.models import mesh as mesh_mod
+    from ascendpathtracing.accel import meshes as mesh_lib
+    from ascendpathtracing.models import mesh as mesh_mod
 
     v, f = mesh_lib.cube(center=(50, 30, 60), size=30.0)
     ms = mesh_mod.MeshScene.cornell_with_mesh(v, f, albedo=(0.85, 0.55, 0.2))
@@ -131,8 +131,8 @@ def test_wavefront_mesh_pool_size_consistency():
 def test_wavefront_mesh_sort_every_energy_invariant():
     """Deferring compaction (sort_every=2) must not change total energy
     beyond RNG noise — samples are neither dropped nor double-counted."""
-    from ascendpathtracing_tpu.accel import meshes as mesh_lib
-    from ascendpathtracing_tpu.models import mesh as mesh_mod
+    from ascendpathtracing.accel import meshes as mesh_lib
+    from ascendpathtracing.models import mesh as mesh_mod
 
     v, f = mesh_lib.cube(center=(50, 30, 60), size=30.0)
     ms = mesh_mod.MeshScene.cornell_with_mesh(v, f, albedo=(0.85, 0.55, 0.2))
